@@ -8,6 +8,7 @@ matching tinyobj/pathtracer.cpp:63-67 semantics).
 """
 
 import os
+import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -211,18 +212,22 @@ def make_terrain(path, grid=128, n_rocks=24, rock_sub=12, seed=7):
              (2.5, 6.0, 2.5), (-2.5, 6.0, 2.5), vb, tbase=1)
 
 
-def make_checker_png(path, size=128, tiles=8):
-    """Checkerboard texture (roughness/normal-map test input)."""
+def checker_rgba(size=128, tiles=8):
+    """uint8 [size, size, 4] checkerboard (roughness/normal-map test
+    input)."""
     import numpy as np
-    try:
-        from PIL import Image
-    except ImportError:
-        return
     y, x = np.mgrid[0:size, 0:size]
     checker = (((x * tiles // size) + (y * tiles // size)) % 2).astype(np.uint8)
     img = np.stack([checker * 255, checker * 200 + 55, 255 - checker * 255,
                     np.full_like(checker, 255)], axis=-1)
-    Image.fromarray(img.astype('uint8'), 'RGBA').save(path)
+    return img.astype(np.uint8)
+
+
+def make_checker_png(path, size=128, tiles=8):
+    """Checkerboard texture as an 8-bit RGBA PNG (standard-library codec)."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from pathtracing_spectrum_tpu.utils.png import write_png
+    write_png(path, checker_rgba(size, tiles))
 
 
 if __name__ == "__main__":

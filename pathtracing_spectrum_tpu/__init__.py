@@ -1,10 +1,10 @@
-"""TPU-native spectral path-tracing framework.
+"""Spectral path-tracing framework on JAX (CPU or GPU).
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 JCSaltFish/PathTracing-Spectrum (an interactive C++/OpenMP thermal-infrared
 spectral path tracer): spectral materials with Planck blackbody emission,
 four surface models, progressive Monte-Carlo rendering, scene files, and
-ASCII spectral import/export — built wavefront-first for TPU.
+ASCII spectral import/export — built wavefront-first for an accelerator.
 """
 
 from .constants import EPS, INF, SCENE_FILE_VERSION, __version__

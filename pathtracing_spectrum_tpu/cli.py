@@ -25,7 +25,7 @@ import sys
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pathtracing_spectrum_tpu",
-        description="TPU-native spectral path tracer")
+        description="spectral path tracer (JAX, CPU or GPU)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("render", help="progressive render of a .pts scene")
@@ -42,8 +42,7 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="CIE XYZ->sRGB color PNG (visible-range scenes; "
                         "thermal-IR wavenumbers map to black)")
     r.add_argument("--backend", default="auto",
-                   choices=["auto", "dense", "dense_pallas", "bvh",
-                            "shortlist", "worklist", "cluster", "hier"])
+                   choices=["auto", "dense", "dense_pallas", "bvh"])
     r.add_argument("--depth", type=int, default=None,
                    help="override trace depth (1..10)")
     r.add_argument("--res", default=None, help="override resolution WxH")
@@ -71,9 +70,7 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("--chunks", type=int, default=1,
                    help="bounded-width wavefront: trace each sample as "
                         "N sequential sub-wavefronts inside the dispatch "
-                        "(per-lane cost grows with wavefront width on "
-                        "v5e — 4K frames run faster as 512^2-sized "
-                        "chunks; also caps the HBM working set)")
+                        "(caps the device-memory working set at 4K)")
     r.add_argument("--batch", type=int, default=8,
                    help="samples per device dispatch")
     r.add_argument("--checkpoint", default=None,
@@ -141,6 +138,7 @@ def cmd_render(args) -> int:
     from . import viewer
     from .render import RenderSession
     from .utils import scene_io, spectral_io
+    from .utils.png import write_png
 
     redirects = {}
     for item in args.redirect:
@@ -210,9 +208,7 @@ def cmd_render(args) -> int:
                                 live_path)
                 if args.png_srgb:
                     # device XYZ->sRGB epilogue: only uint8 crosses the wire
-                    from PIL import Image as PILImage
-                    PILImage.fromarray(session.result_srgb(),
-                                       mode="RGB").save(args.png_srgb)
+                    write_png(args.png_srgb, session.result_srgb())
                 if args.ascii:
                     print("\n" + viewer.ascii_preview(session.result(),
                                                       max(args.channel, 0)))
@@ -250,9 +246,7 @@ def cmd_render(args) -> int:
     if args.png_srgb:
         # device epilogue (viewer.spectral_to_srgb_device) when the session
         # still holds a device accumulator; host fallback otherwise
-        from PIL import Image as PILImage
-        PILImage.fromarray(session.result_srgb(), mode="RGB").save(
-            args.png_srgb)
+        write_png(args.png_srgb, session.result_srgb())
         print(f"wrote {args.png_srgb}")
     if args.checkpoint:
         session.save_checkpoint(args.checkpoint)
@@ -317,15 +311,14 @@ def cmd_new(args) -> int:
 
 
 def cmd_preview(args) -> int:
-    from PIL import Image as PILImage
-
     from .preview import preview_render
     from .utils import scene_io
+    from .utils.png import write_png
 
     scene = scene_io.load_scene(args.scene)
     w, h = _parse_res(args.res) if args.res else scene.resolution
     img = preview_render(scene, w, h)
-    PILImage.fromarray(img, mode="L").save(args.out)
+    write_png(args.out, img)
     print(f"wrote {args.out}")
     return 0
 
@@ -375,6 +368,8 @@ def cmd_bench(args) -> int:
     root = __file__
     for _ in range(2):
         root = os.path.dirname(root)
+    # One process per card: this parent has not imported jax, so the
+    # child is the only process that opens the device.
     return subprocess.call([sys.executable, os.path.join(root, "bench.py")])
 
 
@@ -386,6 +381,9 @@ def cmd_shell(args) -> int:
 
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
+    if args.cmd != "bench":     # bench's child process enables its own
+        from .compile_cache import enable_compile_cache
+        enable_compile_cache()
     return {
         "render": cmd_render,
         "info": cmd_info,

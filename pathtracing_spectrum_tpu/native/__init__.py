@@ -1,7 +1,8 @@
 """ctypes bindings for the native (C++) runtime components.
 
-Builds ``libpts_native.so`` from src/pts_native.cpp on first use (g++ is in
-the image; no pybind11 needed) and exposes:
+Builds ``build/libpts_native.so`` from src/pts_native.cpp with g++ on
+first use (no pybind11 needed; the build directory is not tracked) and
+exposes:
 
 * ``load_obj_native(path)``   — fast OBJ parse -> utils.obj_loader.ObjMesh
 * ``build_bvh_native(...)``   — binned-SAH flat skip-link BVH
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sys
 import threading
 from typing import Optional
 
@@ -31,15 +33,31 @@ _lib: "ctypes.CDLL | None" = None
 _tried = False
 
 
+def _warn(msg: str) -> None:
+    print(f"pathtracing_spectrum_tpu.native: {msg}; using the Python "
+          "fallbacks", file=sys.stderr)
+
+
 def _compile() -> bool:
+    """Build the library for the generic x86-64/aarch64 target (no
+    ``-march=native``), so a build left in the checkout runs on the next
+    host too. Builds to a private name and renames, so concurrent first
+    uses (test workers) never load a half-written file."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-march=native",
-           _SRC, "-o", _LIB_PATH]
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
     try:
         res = subprocess.run(cmd, capture_output=True, timeout=240)
-    except (OSError, subprocess.TimeoutExpired):
+    except (OSError, subprocess.TimeoutExpired) as e:
+        _warn(f"could not build {_LIB_PATH} ({type(e).__name__}: {e})")
         return False
-    return res.returncode == 0 and os.path.exists(_LIB_PATH)
+    if res.returncode != 0 or not os.path.exists(tmp):
+        err = res.stderr.decode(errors="replace").strip().splitlines()
+        _warn(f"building {_LIB_PATH} failed"
+              + (f" ({err[-1]})" if err else ""))
+        return False
+    os.replace(tmp, _LIB_PATH)
+    return True
 
 
 def _load() -> "ctypes.CDLL | None":
@@ -57,7 +75,8 @@ def _load() -> "ctypes.CDLL | None":
                 return None
         try:
             lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
+        except OSError as e:
+            _warn(f"could not load {_LIB_PATH} ({e})")
             return None
 
         c_i32 = ctypes.c_int32

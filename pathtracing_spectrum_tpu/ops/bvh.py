@@ -4,7 +4,8 @@ The reference builds a binary pointer tree by sorting ALL triangles along a
 random axis at every level and median-splitting (mesh.cpp:177-221 — an
 O(n log^2 n) build that duplicates single-triangle leaves), then traverses it
 recursively per ray (mesh.cpp:239-280). Neither pointer-chasing nor
-per-ray recursion maps to TPU, so this module re-designs both:
+per-ray recursion maps to a vectorised wavefront, so this module
+re-designs both:
 
 * **Build** (host, numpy; optional C++ fast path in native/): top-down
   median split on the longest centroid axis, leaves up to ``leaf_size``
@@ -174,10 +175,13 @@ def _leaf_hits(ro, rd, v1, e1, e2, n, valid):
 def intersect_bvh(ro, rd,
                   tri_v1, tri_e1, tri_e2, tri_n,
                   node_min, node_max, node_skip, node_first, node_count,
-                  leaf_size: int = 4):
+                  leaf_size: int = 4, count_iterations: bool = False):
     """Closest hit via lockstep skip-link traversal.
 
-    Returns (hit, t, idx, s2, s3) with idx into the BVH-ordered SoA.
+    Returns (hit, t, idx, s2, s3) with idx into the BVH-ordered SoA, plus
+    the number of loop iterations with ``count_iterations`` (measurement:
+    the loop's condition is an ``any()`` over all rays, which a GPU
+    evaluates on the host once per iteration).
     """
     n_rays = ro.shape[0]
     n_nodes = node_min.shape[0]
@@ -190,7 +194,7 @@ def intersect_bvh(ro, rd,
         return jnp.any(node < n_nodes)
 
     def body(state):
-        node, best_t, best_i, best_s2, best_s3 = state
+        node, best_t, best_i, best_s2, best_s3, iters = state
         active = node < n_nodes
         nid = jnp.where(active, node, 0)
 
@@ -222,11 +226,12 @@ def intersect_bvh(ro, rd,
         descend = box_hit & ~is_leaf
         nxt = jnp.where(descend, node + 1, skip)
         node = jnp.where(active, nxt, node)
-        return node, best_t, best_i, best_s2, best_s3
+        return node, best_t, best_i, best_s2, best_s3, iters + 1
 
     state0 = (jnp.zeros(n_rays, jnp.int32), jnp.full(n_rays, BIG),
               jnp.zeros(n_rays, jnp.int32), jnp.zeros(n_rays, jnp.float32),
-              jnp.zeros(n_rays, jnp.float32))
-    node, best_t, best_i, best_s2, best_s3 = jax.lax.while_loop(
+              jnp.zeros(n_rays, jnp.float32), jnp.zeros((), jnp.int32))
+    node, best_t, best_i, best_s2, best_s3, iters = jax.lax.while_loop(
         cond, body, state0)
-    return best_t < BIG, best_t, best_i, best_s2, best_s3
+    out = (best_t < BIG, best_t, best_i, best_s2, best_s3)
+    return out + (iters,) if count_iterations else out

@@ -74,9 +74,9 @@ def sample_bounce_soa(mat_type, rdx, rdy, rdz, nx, ny, nz, roughness,
                       eta_inside=None, eta_outside=None) -> BounceSampleSoA:
     """Component-wise (SoA) twin of ``sample_bounce``.
 
-    TPU rationale: [N, 3] vectors waste 125 of 128 lanes per op; as six [N]
-    planes every operation runs full-lane. Identical math, identical
-    reference quirks — see ``sample_bounce``.
+    Six [N] planes instead of [N, 3] vectors, so every operation is a
+    full-width elementwise op. Identical math, identical reference quirks
+    — see ``sample_bounce``.
     """
     ndot = rdx * nx + rdy * ny + rdz * nz
     rx, ry, rz = rdx - 2.0 * ndot * nx, rdy - 2.0 * ndot * ny, rdz - 2.0 * ndot * nz

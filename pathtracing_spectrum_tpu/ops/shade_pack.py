@@ -1,12 +1,9 @@
 """Packed per-triangle shading table.
 
-TPU rationale: after the closest-hit pass every ray needs ~15 per-triangle /
-per-material attributes. Individual ``table[idx]`` gathers cost ~0.8 ms each
-at 512x512 on a v5e (measured) — 12+ of them per bounce dwarfed the actual
-intersection math. Packing every attribute into ONE [T, F] float32 table
-turns the whole fetch into a single one-hot [N, T] x [T, F] matmul on the
-MXU (exact: one-hot rows select, they don't mix), ~20x cheaper for small T.
-For large T the engine falls back to a single packed gather.
+After the closest-hit pass every ray needs ~15 per-triangle / per-material
+attributes. Packing every attribute into ONE [T, F] float32 table turns
+the whole fetch into a single row gather of the columns a configuration
+reads (engine._fetch_attrs_t), instead of 12+ separate gathers per bounce.
 
 Layout (F = BASE + 4*nw):
   v1[0:3] e1[3:6] e2[6:9] n1[9:12] n2[12:15] n3[15:18]
@@ -17,9 +14,8 @@ Layout (F = BASE + 4*nw):
   temp_grid_wh[48:50] emissivity[50:50+nw] reflectivity[+nw] eps_curve[+nw]
   ior_curve[+nw] (per-wavelength Cauchy index, dispersion mode)
 
-Texture sizes ride in the table because a per-ray ``sizes[tid]`` gather is
-catastrophically slow under XLA on TPU (profiled 19 ms per 2M-ray lookup —
-4 of them cost 40% of a bounce).
+Texture sizes ride in the table so they arrive with the same row gather
+instead of a separate per-ray ``sizes[tid]`` gather each.
 
 Int-valued columns (type, texture ids, smoothing) are stored as float32 —
 exact for the small ranges involved — and compared as floats in the engine.

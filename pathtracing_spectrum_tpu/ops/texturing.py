@@ -49,9 +49,8 @@ def build_texture_table(images: List[np.ndarray], channels: int
 def sample_nearest_wh(table, tex_id, w, h, u, v):
     """Nearest fetch with per-ray (w, h) provided as arrays.
 
-    TPU path: avoids the per-ray ``sizes[tid]`` int gathers entirely (XLA
-    lowers them catastrophically — profiled ~19 ms per 2M-ray lookup); the
-    engine fetches w/h from the packed shading table instead.
+    Avoids the per-ray ``sizes[tid]`` int gathers: the engine fetches w/h
+    with the rest of the packed shading table row instead.
     """
     tid = jnp.maximum(tex_id, 0)
     wi = jnp.maximum(w.astype(jnp.int32), 1)
@@ -86,9 +85,8 @@ def sample_nearest(table, sizes, tex_id, uv):
     h = sizes[tid, 1].astype(jnp.float32)
     x = jnp.clip((w * u).astype(jnp.int32), 0, sizes[tid, 0] - 1)
     y = jnp.clip((h * v).astype(jnp.int32), 0, sizes[tid, 1] - 1)
-    # Flatten to a single row gather: XLA lowers [tid, y, x] multi-axis
-    # gathers ~5x slower than one leading-axis row gather on TPU (measured
-    # 49 ms vs ~10 ms for 2M lookups on v5e).
+    # Flatten to a single leading-axis row gather instead of a [tid, y, x]
+    # multi-axis gather.
     k, hm, wm = table.shape[0], table.shape[1], table.shape[2]
     flat = table.reshape((k * hm * wm,) + table.shape[3:])
     vals = flat[(tid * hm + y) * wm + x]

@@ -3,18 +3,18 @@
 Two complementary multi-chip strategies (SURVEY §2.3, BASELINE config 5):
 
 * ``TileSharding`` — the image's flat pixel axis is sharded across chips;
-  every chip traces its own tile and accumulates locally. Zero inter-chip
-  traffic during rendering; one all-gather at framebuffer readback (jax
-  performs it when the sharded array is fetched). This is the scaling path
-  for large resolutions (4K tiled render).
+  every device traces its own tile and accumulates locally. Zero
+  inter-device traffic during rendering; one all-gather at framebuffer
+  readback (jax performs it when the sharded array is fetched). This is
+  the scaling path for large resolutions (4K tiled render).
 
-* ``SppAllreduce`` — every chip renders the FULL image with a
-  device-distinct RNG stream; per-sample radiance is ``psum``'d over ICI
-  inside ``shard_map`` so one step adds ``n_devices`` samples. This is the
+* ``SppAllreduce`` — every device renders the FULL image with a
+  device-distinct RNG stream; per-sample radiance is ``psum``'d inside
+  ``shard_map`` so one step adds ``n_devices`` samples. This is the
   scaling path for convergence (high spp at modest resolution).
 
-Both paths run the identical single-chip engine inside the sharded region —
-the same code executes on a CPU test mesh and a TPU pod slice.
+Both paths run the identical single-device engine inside the sharded
+region — the same code executes on a CPU test mesh and on GPUs.
 """
 
 from __future__ import annotations
@@ -28,24 +28,20 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from ..engine import trace_radiance, render_sample as _render_sample_1chip
+from ..engine import (KERNEL_BACKENDS, resolve_backend, trace_radiance,
+                      render_sample as _render_sample_1chip)
 from .mesh import TILE_AXIS, make_mesh, replicated, tile_sharded
 
 
-# Backends whose intersection runs as a Pallas kernel (a custom call).
-# XLA's SPMD partitioner cannot split a custom call: under plain
-# jit-with-sharded-inputs it REPLICATES the kernel — the compiled module
-# all-gathers the sharded rays and every device sweeps the full image
-# (measured: 42 all-gathers in the 8-device hier HLO). Those backends
-# route through shard_map instead, where each device's tile is a plain
-# local array and the kernel runs per-shard with zero collectives.
-_PALLAS_BACKENDS = ("dense_pallas", "cluster", "shortlist", "worklist",
-                    "hier")
-
-
 def _needs_shard_map(backend: str, n_tris: int) -> bool:
-    from ..engine import resolve_backend
-    return resolve_backend(backend, n_tris=n_tris) in _PALLAS_BACKENDS
+    """Backends whose intersection runs as a Pallas kernel (a custom
+    call). XLA's SPMD partitioner cannot split a custom call: under plain
+    jit-with-sharded-inputs it REPLICATES the kernel — the compiled module
+    all-gathers the sharded rays and every device sweeps the full image.
+    Those backends route through shard_map instead, where each device's
+    tile is a plain local array and the kernel runs per-shard with zero
+    collectives."""
+    return resolve_backend(backend, n_tris) in KERNEL_BACKENDS
 
 
 def per_device_rays(mesh, scene_data, ro, rd, key, max_depth,
@@ -71,17 +67,17 @@ def per_device_rays(mesh, scene_data, ro, rd, key, max_depth,
 
 def tile_shard_trace(mesh, scene_data, ro, rd, key, max_depth,
                      backend="auto", rand_override=None, dispersion=False,
-                     fold_device=True):
+                     fold_device=True, interpret=False):
     """``trace_radiance`` inside ``shard_map`` over the pixel axis.
 
     Each device traces its local ray tile as a plain array, so Pallas
-    kernels execute per-shard (no all-gathers — see _PALLAS_BACKENDS).
+    kernels execute per-shard (no all-gathers — see _needs_shard_map).
     With ``fold_device`` each device folds its mesh index into the key
     (distinct variate streams per tile); with ``fold_device=False`` and a
     sharded ``rand_override`` the computation is bit-identical to the
     unsharded ``trace_radiance`` on the gathered rays (per-pixel math is
     pixel-local and the kernels are ray-order/batch-width independent —
-    pinned by tests/test_sharding.py::test_tile_shard_map_hier_bitexact).
+    pinned by tests/test_sharding.py::test_tile_shard_map_kernel_bitexact).
 
     Returns (radiance [N_local stacked as sharded N, nw], rays_traced psum).
     """
@@ -89,7 +85,8 @@ def tile_shard_trace(mesh, scene_data, ro, rd, key, max_depth,
         if fold_device:
             k = jax.random.fold_in(k, jax.lax.axis_index(TILE_AXIS))
         res = trace_radiance(scene, o, d, k, max_depth, backend,
-                             rand_override=rand_o, dispersion=dispersion)
+                             rand_override=rand_o, dispersion=dispersion,
+                             interpret=interpret)
         return res.radiance, jax.lax.psum(res.rays_traced, TILE_AXIS)
 
     rep_scene = jax.tree.map(lambda _: P(), scene_data)
@@ -104,12 +101,13 @@ def tile_shard_trace(mesh, scene_data, ro, rd, key, max_depth,
 
 @functools.partial(jax.jit,
                    static_argnames=("mesh", "n_steps", "max_depth",
-                                    "backend", "dispersion", "chunks"),
+                                    "backend", "dispersion", "chunks",
+                                    "interpret"),
                    donate_argnums=(4,))
 def _tile_shard_map_samples(mesh, scene_data, ro, rd, total, samples,
                             base_key, counter0, n_steps, max_depth,
                             backend, dispersion=False, jitter_cam=None,
-                            chunks=1):
+                            chunks=1, interpret=False):
     """Batched tile-sharded sampling with the engine INSIDE shard_map.
 
     Sample ``i`` on device ``dev`` keys its variates with
@@ -153,7 +151,8 @@ def _tile_shard_map_samples(mesh, scene_data, ro, rd, total, samples,
                     c, oc, dc = args
                     kc = jax.random.fold_in(k, 0xC40000 + c)
                     res = trace_radiance(scene, oc, dc, kc, max_depth,
-                                         backend, dispersion=dispersion)
+                                         backend, dispersion=dispersion,
+                                         interpret=interpret)
                     return res.radiance, res.rays_traced
 
                 rad_c, rays_c = jax.lax.map(
@@ -162,7 +161,7 @@ def _tile_shard_map_samples(mesh, scene_data, ro, rd, total, samples,
                 return (tot + rad_c.reshape(tot.shape),
                         rays + jnp.sum(rays_c))
             res = trace_radiance(scene, o, d_i, k, max_depth, backend,
-                                 dispersion=dispersion)
+                                 dispersion=dispersion, interpret=interpret)
             return tot + res.radiance, rays + res.rays_traced
 
         tot, rays = jax.lax.fori_loop(
@@ -243,7 +242,7 @@ class TileSharding:
 
         Pure-XLA backends (dense/bvh): jit + input shardings partition the
         pixel work with no collectives (bit-identical to single-chip).
-        Pallas backends route through shard_map (see _PALLAS_BACKENDS —
+        Pallas backends route through shard_map (see _needs_shard_map —
         XLA would otherwise replicate the kernel), with a per-device key
         fold: per-mesh deterministic, like SppAllreduce.
         """
@@ -278,7 +277,7 @@ class TileSharding:
             nloc = ro.shape[0] // self.n_devices
             if nloc % chunks:
                 raise ValueError(
-                    f"per-device tile width {nloc} must divide "
+                    f"per-device tile width {nloc} must be divisible by "
                     f"chunks={chunks}")
         if _needs_shard_map(backend, scene_data.tri_shade.shape[0]):
             return _tile_shard_map_samples(
@@ -309,7 +308,7 @@ class TileSharding:
 
 
 class SppAllreduce:
-    """Each device renders the full image; radiance psum'd over ICI."""
+    """Each device renders the full image; radiance psum'd over the mesh."""
 
     def __init__(self, mesh: Optional[Mesh] = None):
         self.mesh = mesh if mesh is not None else make_mesh()
@@ -331,7 +330,7 @@ class SppAllreduce:
 
     def render_sample(self, scene_data, ro, rd, total, samples, key,
                       max_depth, backend="dense", dispersion=False):
-        """One step = n_devices samples, combined with a psum over ICI."""
+        """One step = n_devices samples, combined with a psum."""
         scene_data = jax.device_put(scene_data, replicated(self.mesh))
         return _spp_allreduce_step(self.mesh, scene_data, ro, rd, total,
                                    samples, key, max_depth, backend,
@@ -361,7 +360,7 @@ def _spp_allreduce_step(mesh, scene_data, ro, rd, total, samples, key,
         k = jax.random.fold_in(k, dev)
         res = trace_radiance(scene, o, d, k, max_depth, backend,
                              dispersion=dispersion)
-        # spp-allreduce: sum the per-device samples over the ICI ring
+        # spp-allreduce: sum the per-device samples over the mesh
         rad = jax.lax.psum(res.radiance, TILE_AXIS)
         nrays = jax.lax.psum(res.rays_traced, TILE_AXIS)
         return rad, nrays

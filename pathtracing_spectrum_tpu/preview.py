@@ -16,8 +16,8 @@ one primary-ray intersection pass produces
 * ``pick`` — object/element ids under a pixel.
 
 Both run through the same compiled SceneData and intersection kernels as
-the tracer (engine.make_intersector — dense Pallas sweep, shortlist kernel
-or CPU BVH by scene size), so previews of 100k+-triangle scenes stay
+the tracer (engine.make_intersector — dense sweep or BVH by scene
+size), so previews of 100k+-triangle scenes stay
 interactive and what you pick is exactly what you trace.
 """
 

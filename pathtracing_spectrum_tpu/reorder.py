@@ -1,23 +1,17 @@
 """Bounce-ray reorder primitives (sort keys, segments, scene bounds).
 
 Kept separate from engine.py so the key schedule has exactly one home.
-(Historically also consumed by the retired compact/persistent engines,
-whose bit-identity guarantee rode on byte-identical keys — see the
-engine-zoo decision in STATUS.md round 5.)
+Reordering is opt-in (``trace_radiance(reorder=True)``): it pays only for
+an intersection that culls per block of rays, which neither the dense
+kernel nor the BVH does, so its only effect today is dead-ray compaction.
 
-Design notes (all measured on a v5e — see docs/tpu_cost_model.md):
+Design notes:
 
-* Key = (dead bit, direction octant, origin morton cell). Octant first
-  because the shortlist kernels' interval slab test constrains nothing
-  on an axis whose direction bounds span 0; morton second so each
-  1024-ray block gets tight origin bounds. Dead rays key to the top
-  bucket so live rays compact to the front and fully-parked tail
-  blocks shortlist to zero groups.
-* Sorts run per SEGMENT, not globally: XLA's bitonic sort on a [S, L]
-  batch keeps each segment's network in VMEM (3.1 ms vs 30.4 ms for a
-  global 2M-key argsort), and a segment-local permutation lets the
-  inverse be another cheap segmented argsort instead of a scatter
-  (85 ms for a [2M, 4] row scatter).
+* Key = (dead bit, direction octant, origin morton cell). Octant first,
+  morton second so each block of rays gets tight origin bounds. Dead
+  rays key to the top bucket so live rays compact to the front.
+* Sorts run per SEGMENT, not globally, and a segment-local permutation
+  lets the inverse be another segmented argsort instead of a scatter.
 """
 
 from __future__ import annotations
@@ -26,19 +20,8 @@ import os
 
 import jax.numpy as jnp
 
-from .ops.intersect_shortlist import root_bounds
-
-# "auto" bounce-ray reorder: only above this triangle count. With the
-# segmented sort + packed row-gather application the reorder pays from a
-# couple thousand triangles up (1080p/2.2k tris: 1.95 -> 2.33 spp/s; 52k:
-# 2.9 -> 6.5); below ~1k the shortlist has almost nothing to cull and the
-# per-bounce sort is pure overhead.
-REORDER_AUTO_MIN_TRIS = 1024
-
-# Reorder key layout: morton bits per origin axis. 4 measured ~flat vs
-# 5 under the round-3 segmented sort; PTS_REORDER_POS_BITS re-probes it
-# (fresh process) now that the global segment changed block composition
-# at large scenes. Result-exact for any value (any permutation is).
+# Reorder key layout: morton bits per origin axis; PTS_REORDER_POS_BITS
+# overrides it. Result-exact for any value (any permutation is).
 REORDER_POS_BITS = int(os.environ.get("PTS_REORDER_POS_BITS", "4"))
 if not 1 <= REORDER_POS_BITS <= 9:
     raise ValueError(f"PTS_REORDER_POS_BITS={REORDER_POS_BITS}: "
@@ -46,29 +29,18 @@ if not 1 <= REORDER_POS_BITS <= 9:
                      "the material/dead bits)")
 
 # Segment size for the segmented sorts (64 blocks of 1024 rays). Rays
-# only move within their segment — dead-ray compaction and octant
-# grouping become per-segment, which block-level culling is equally
-# happy with. Each segment boundary can leave one octant-MIXED kernel
-# block whose shortlist spans two octants' groups; PTS_REORDER_SEGMENT
-# exists to A/B that against the bitonic network's n log^2 n growth
+# only move within their segment, so dead-ray compaction and octant
+# grouping become per-segment; PTS_REORDER_SEGMENT overrides it
 # (result-exact either way — any permutation is).
 REORDER_SEGMENT = int(os.environ.get("PTS_REORDER_SEGMENT", "65536"))
 
-# Size-aware GLOBAL-segment upgrade (round 5, v5e 2026-08-20,
-# tools/ab_engine.py, spp/s base -> one global 262144-ray segment):
-#   terrain 246k @512²: 3.85 -> 4.05  (+5.2% — target 4.0 met)
-#   terrain 1M   @512²: 1.82 -> 1.93  (+6.1%)
-#   terrain 52k  @512²: 9.03 -> 8.49  (−6.0% — the extra bitonic depth
-#     costs ~2-3 ms/iteration, which a 110 ms sample cannot absorb)
-#   textured 1080p (2.2k tris, 2M rays): 3.368 -> 3.367 (wash; the cap
-#     keeps 2M-ray frames segmented — a global 2M bitonic measured
-#     30.4 vs 3.1 ms in round 3)
-# A globally sorted wavefront gives octant-pure blocks everywhere
-# (segment boundaries each leave one octant-mixed block); the coherence
-# is only worth the deeper sort network where the per-sample cost is
-# dominated by the bounce sweep — i.e. large scenes. Policy: one global
-# segment iff n_tris >= 128k AND the wavefront is <= 262144 rays;
-# PTS_REORDER_SEGMENT overrides (then segment_for alone decides).
+# Size-aware GLOBAL segment: a globally sorted wavefront gives
+# octant-pure blocks everywhere, which only pays where the bounce sweep
+# dominates — large scenes at moderate wavefront widths. Policy: one
+# global segment iff n_tris >= 128k AND the wavefront is <= 262144 rays;
+# PTS_REORDER_SEGMENT overrides (then segment_for alone decides). The
+# thresholds were tuned before the GPU port and await re-measurement on the
+# GPU (ROADMAP).
 REORDER_GLOBAL_SEG_MIN_TRIS = 131072
 REORDER_GLOBAL_SEG_MAX_N = 262144
 
@@ -83,9 +55,9 @@ def segment_for(n: int) -> int:
 
 
 def segment_policy(n: int, n_tris: int) -> int:
-    """The engine's segment choice: the measured size-aware default
-    (global segment for large scenes at moderate wavefront widths — see
-    the table above), unless PTS_REORDER_SEGMENT pins the cap."""
+    """The engine's segment choice: the size-aware default (global
+    segment for large scenes at moderate wavefront widths — see above),
+    unless PTS_REORDER_SEGMENT pins the cap."""
     if "PTS_REORDER_SEGMENT" not in os.environ \
             and n_tris >= REORDER_GLOBAL_SEG_MIN_TRIS \
             and n <= REORDER_GLOBAL_SEG_MAX_N:
@@ -95,9 +67,8 @@ def segment_policy(n: int, n_tris: int) -> int:
 
 def scene_bounds(scene):
     """(smin[3], 1/extent[3]) of the scene root box — the morton-cell
-    quantisation frame. Same root reduction as the kernels' sweep caps
-    (ops.intersect_shortlist.root_bounds)."""
-    smin, smax = root_bounds(scene.cluster_aabbs)
+    quantisation frame."""
+    smin, smax = scene.root_aabb[0], scene.root_aabb[1]
     return smin, 1.0 / jnp.maximum(smax - smin, 1e-6)
 
 
@@ -111,7 +82,7 @@ def sort_key(ox, oy, oz, dx, dy, dz, alive, smin, inv_ext, morton: bool,
     ``mat`` (A/B gear, PTS_SORT_MAT): the previous hit's material type
     (int32 in 0..3) keyed ABOVE the octant — the "material-sorted
     shading queues" north-star hypothesis. Result-exact (any permutation
-    is); measured verdict in docs/tpu_cost_model.md.
+    is).
     """
     mat_shift = 3 * REORDER_POS_BITS + 3
     dead_bit = jnp.int32(1) << (mat_shift + (2 if mat is not None else 0))

@@ -467,11 +467,10 @@ class SpectrumShell(cmd.Cmd):
         self._say(f"wrote {parts[0]}")
 
     def _write_preview(self, out: str, gray: bool = False) -> None:
-        from PIL import Image as PILImage
         from .preview import preview_render
+        from .utils.png import write_png
         w, h = self.scene.resolution
-        img = preview_render(self.scene, w, h, rgb=not gray)
-        PILImage.fromarray(img, mode="L" if gray else "RGB").save(out)
+        write_png(out, preview_render(self.scene, w, h, rgb=not gray))
         self._view_key = self._view_state()
 
     # -- autopreview: refresh the preview PNG after each mutating command

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .utils.png import write_png
+
 
 def to_grayscale(image: np.ndarray, channel: int,
                  scale: float = 255.0) -> np.ndarray:
@@ -37,11 +39,9 @@ def normalized_grayscale(image: np.ndarray, channel: int) -> np.ndarray:
 
 def save_png(image: np.ndarray, channel: int, path: str,
              normalize: bool = True) -> None:
-    from PIL import Image as PILImage
-
     gray = (normalized_grayscale(image, channel) if normalize
             else to_grayscale(image, channel))
-    PILImage.fromarray(gray, mode="L").save(path)
+    write_png(path, gray)
 
 
 def save_all_channels_png(image: np.ndarray, path_prefix: str,
@@ -125,18 +125,22 @@ def spectral_to_srgb_device(image, wavenumbers, exposure: float = 0.0,
     host path is f64 — agreement within 1-2 uint8 steps (pinned by
     test_cli_viewer.test_srgb_device_matches_host).
     """
+    import jax
     import jax.numpy as jnp
 
     img = jnp.nan_to_num(jnp.asarray(image, jnp.float32), nan=0.0)
     # the CMF fit is nw tiny host-side values; the H*W*nw work is on device
     lam_nm = 1e7 / np.maximum(np.asarray(wavenumbers, np.float64), 1e-9)
     cmf = jnp.asarray(cie_xyz_bar(lam_nm), jnp.float32)       # [nw, 3]
-    xyz = img @ cmf
+    # HIGHEST: a default-precision f32 product may run in TF32 on a GPU
+    hi = jax.lax.Precision.HIGHEST
+    xyz = jnp.matmul(img, cmf, precision=hi)
     if auto_expose:
         ref = jnp.percentile(xyz[..., 1], 99.5)
         xyz = jnp.where(ref > 0, xyz / jnp.where(ref > 0, ref, 1.0), xyz)
     xyz = xyz * jnp.float32(2.0 ** exposure)
-    rgb = xyz @ jnp.asarray(_XYZ_TO_SRGB.T, jnp.float32)
+    rgb = jnp.matmul(xyz, jnp.asarray(_XYZ_TO_SRGB.T, jnp.float32),
+                     precision=hi)
     rgb = jnp.clip(rgb, 0.0, 1.0)
     srgb = jnp.where(rgb <= 0.0031308, 12.92 * rgb,
                      1.055 * rgb ** (1.0 / 2.4) - 0.055)
@@ -145,8 +149,6 @@ def spectral_to_srgb_device(image, wavenumbers, exposure: float = 0.0,
 
 def save_srgb_png(image, wavenumbers, path: str,
                   exposure: float = 0.0) -> None:
-    from PIL import Image as PILImage
-
     if not isinstance(image, np.ndarray):
         try:
             import jax
@@ -157,11 +159,9 @@ def save_srgb_png(image, wavenumbers, path: str,
             # device epilogue + one small uint8 readback
             arr = np.asarray(spectral_to_srgb_device(image, wavenumbers,
                                                      exposure=exposure))
-            PILImage.fromarray(arr, mode="RGB").save(path)
+            write_png(path, arr)
             return
-    PILImage.fromarray(spectral_to_srgb(image, wavenumbers,
-                                        exposure=exposure),
-                       mode="RGB").save(path)
+    write_png(path, spectral_to_srgb(image, wavenumbers, exposure=exposure))
 
 
 _ASCII_RAMP = " .:-=+*#%@"

@@ -14,7 +14,7 @@ def inward_box_obj() -> str:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "assets"))
     from make_assets import box
-    path = os.path.join(tempfile.gettempdir(), "pts_tpu_inward_box.obj")
+    path = os.path.join(tempfile.gettempdir(), "pts_inward_box.obj")
     with open(path, "w") as f:
         f.write("g walls\n")
         box(f, (-2, -2, -2), (2, 2, 2), 1, outward=False)

@@ -52,12 +52,12 @@ def test_tile_sharding_matches_single_chip(eight_devices):
 
 
 @pytest.mark.slow
-def test_tile_shard_map_hier_bitexact(eight_devices):
-    """The flagship hier (shortlist/worklist Pallas) path under a real
-    device mesh: tile_shard_trace runs the kernels per-shard inside
-    shard_map (XLA cannot partition a custom call — the plain pjit path
-    replicates it behind all-gathers) and, with shared variates and no
-    device key fold, is BIT-identical to the unsharded render."""
+def test_tile_shard_map_kernel_bitexact(eight_devices):
+    """The dense Pallas kernel backend under a device mesh:
+    tile_shard_trace runs the kernel per-shard inside shard_map (XLA
+    cannot partition a custom call — the plain pjit path replicates it
+    behind all-gathers) and, with shared variates and no device key
+    fold, is BIT-identical to the unsharded render."""
     from pathtracing_spectrum_tpu.engine import trace_radiance
     from pathtracing_spectrum_tpu.parallel.tiling import tile_shard_trace
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -71,21 +71,21 @@ def test_tile_shard_map_hier_bitexact(eight_devices):
     mesh = make_mesh(eight_devices)
 
     R = jax.random.uniform(jax.random.key(11), (4, 4, n))
-    ref = trace_radiance(scene, ro, rd, key, 2, backend="hier",
-                         rand_override=R)
+    ref = trace_radiance(scene, ro, rd, key, 2, backend="dense_pallas",
+                         rand_override=R, interpret=True)
     ts = TileSharding(mesh)
     ro_s, rd_s = ts.shard_rays(ro, rd)
     R_s = jax.device_put(R, NamedSharding(mesh, P(None, None, "tiles")))
     rad, nrays = tile_shard_trace(mesh, scene, ro_s, rd_s, key, 2,
-                                  backend="hier", rand_override=R_s,
-                                  fold_device=False)
+                                  backend="dense_pallas", rand_override=R_s,
+                                  fold_device=False, interpret=True)
     np.testing.assert_array_equal(np.asarray(ref.radiance),
                                   np.asarray(rad))
     assert int(nrays) == int(ref.rays_traced)
 
 
 @pytest.mark.slow
-def test_tile_shard_map_hier_no_allgather(eight_devices):
+def test_tile_shard_map_kernel_no_allgather(eight_devices):
     """The production batched tile path for Pallas backends compiles with
     ZERO all-gathers (each device sweeps only its tile) and renders a
     finite image with the engine.render_samples key schedule."""
@@ -107,13 +107,13 @@ def test_tile_shard_map_hier_no_allgather(eight_devices):
 
     lowered = _tile_shard_map_samples.lower(
         mesh, scene, ro_s, rd_s, total, samples, key, 0,
-        n_steps=2, max_depth=2, backend="hier")
+        n_steps=2, max_depth=2, backend="dense_pallas", interpret=True)
     hlo = lowered.compile().as_text()
     assert len(re.findall(r"all-gather", hlo)) == 0
 
-    t2, s2, out, nrays = ts.render_samples(scene, ro_s, rd_s, total,
-                                           samples, key, 0, n_steps=2,
-                                           max_depth=2, backend="hier")
+    t2, s2, out, nrays = _tile_shard_map_samples(
+        mesh, scene, ro_s, rd_s, total, samples, key, 0, n_steps=2,
+        max_depth=2, backend="dense_pallas", interpret=True)
     g = ts.gather(out)
     assert int(s2) == 2 and np.isfinite(g).all() and g.mean() > 0
     assert int(nrays) > 0
@@ -186,6 +186,27 @@ def test_session_with_tile_sharding(eight_devices):
                          sharding=TileSharding(make_mesh(eight_devices)))
     sharded = sess.run(target_spp=2)
     np.testing.assert_allclose(base, sharded, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("strategy", ["tiles", "spp"])
+def test_sharded_session_compiles_once(eight_devices, strategy):
+    """A sharded session's later steps reuse the first step's program:
+    its sample counter starts on the mesh, where each step leaves it."""
+    from pathtracing_spectrum_tpu import engine
+    from pathtracing_spectrum_tpu.parallel import tiling
+
+    mesh = make_mesh(eight_devices[:4])
+    sharding = (TileSharding(mesh) if strategy == "tiles"
+                else SppAllreduce(mesh))
+    fn = (engine.render_samples if strategy == "tiles"
+          else tiling._spp_allreduce_steps)
+    sess = RenderSession(cornell_scene(depth=1, res=(8, 8)), backend="dense",
+                         sharding=sharding)
+    sess.step(1, readback=False)
+    compiled = fn._cache_size()
+    sess.step(1, readback=False)
+    sess.step(1, readback=False)
+    assert fn._cache_size() == compiled
 
 
 @pytest.mark.slow

@@ -6,8 +6,8 @@
 # compiler segfaults inside backend_compile_and_load — always on the
 # largest programs (the two-loop reorder_from engine traces). Reproduced
 # at round-4 HEAD, with jax.clear_caches() between modules, and with an
-# unlimited stack — an upstream XLA state bug, not a repo regression
-# (STATUS.md round 5). The same tests pass with less accumulated state
+# unlimited stack — an upstream XLA state bug, not a repo regression.
+# The same tests pass with less accumulated state
 # (the quick suite is green in one process).
 #
 # Strategy: one pytest process per test module; if a module's process
@@ -30,6 +30,8 @@ for f in tests/test_*.py; do
     mapfile -t ids < <(python -m pytest "$f" --collect-only -q 2>/dev/null \
                        | grep "::")
     rc=0
+    # a module that crashed and collects nothing is a failure, not a pass
+    if [ ${#ids[@]} -eq 0 ]; then rc=1; fi
     for id in "${ids[@]}"; do
       python -m pytest "$id" -q "$@"
       t=$?
